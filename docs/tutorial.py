@@ -89,7 +89,7 @@ t_ms, rho, iters = optimizer.generate_and_evaluate_program_from_grammar_represen
 print(f"champion re-evaluated: rho={rho:.4f}, {iters} iterations")
 assert rho < 1.0, "evolved champion must converge"
 
-# ── 6. Gradient-tune the relaxation factors (TPU-native extra) ────────
+# ── 6. Gradient-tune the relaxation factors (JAX-native extra) ────────
 # Differentiates the measured log-contraction through the whole lowered
 # solve w.r.t. every ω in the cycle — the reference approximated this by
 # patching generated C++ globals and recompiling.

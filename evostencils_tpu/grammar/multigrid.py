@@ -24,7 +24,7 @@ initiate-cycle/coarse-grid-correction state machine, including the FAS
 AGPL-3.0; evostencils/grammar/multigrid.py:238-385).  A multigrid cycle
 grammar admits few distinct spellings of these transitions, so this
 module — unlike the rest of this repository, which is an independent
-TPU-native design — should be treated as a derivative work of that
+JAX-native design — should be treated as a derivative work of that
 grammar and is provided under the terms of the AGPL-3.0 (see NOTICE at
 the repository root).  The surrounding machinery (TypeUniverse,
 PrimitiveSet registration, typed-GP engine) is original.
@@ -33,11 +33,11 @@ PrimitiveSet registration, typed-GP engine) is original.
 from __future__ import annotations
 
 import itertools
+import re
 from functools import reduce
 from typing import List
 
 import numpy as np
-import sympy
 
 from evostencils_tpu.grammar.gp import PrimitiveSet
 from evostencils_tpu.grammar.typing import Type
@@ -61,63 +61,196 @@ class OperatorInfo:
         return self.stencil_generator
 
 
-class EquationInfo:
-    """One PDE equation 'lhs == rhs_name' with sympy lhs
-    (reference multigrid.py:40-71)."""
+_TOKEN = re.compile(
+    r"\s*(?:(\d+\.?\d*(?:[eE][-+]?\d+)?|\.\d+(?:[eE][-+]?\d+)?)"
+    r"|([A-Za-z_]\w*)|(\*\*|[-+*/()]))"
+)
 
-    def __init__(self, name: str, level: int, expr_str: str):
+
+def parse_linear_form(text: str, constants=None) -> dict:
+    """Expand an equation side into a polynomial over named symbols.
+
+    Accepts sums, differences, products, quotients by constants, integer
+    powers, parentheses, numeric literals and names; names found in
+    ``constants`` are replaced by their values.  Returns
+    {sorted tuple of symbol names: coefficient} with zero terms dropped.
+    Coefficients stay Python ints while every factor is an int literal.
+    """
+    constants = constants or {}
+    tokens = []
+    pos = 0
+    text = text.strip()
+    while pos < len(text):
+        m = _TOKEN.match(text, pos)
+        if m is None or m.end() == pos:
+            raise ValueError(f"cannot parse {text[pos:]!r} in {text!r}")
+        number, name, op = m.groups()
+        if number is not None:
+            is_int = number.isdigit()
+            tokens.append(("num", int(number) if is_int else float(number)))
+        elif name is not None:
+            if name in constants:
+                tokens.append(("num", constants[name]))
+            else:
+                tokens.append(("name", name))
+        else:
+            tokens.append(("op", op))
+        pos = m.end()
+    tokens.append(("end", None))
+    index = [0]
+
+    def peek():
+        return tokens[index[0]]
+
+    def take():
+        tok = tokens[index[0]]
+        index[0] += 1
+        return tok
+
+    def add(a, b, sign=1):
+        out = dict(a)
+        for key, c in b.items():
+            out[key] = out.get(key, 0) + sign * c
+        return {k: c for k, c in out.items() if c != 0}
+
+    def mul(a, b):
+        out = {}
+        for ka, ca in a.items():
+            for kb, cb in b.items():
+                key = tuple(sorted(ka + kb))
+                out[key] = out.get(key, 0) + ca * cb
+        return {k: c for k, c in out.items() if c != 0}
+
+    def expr():
+        acc = term()
+        while peek() in (("op", "+"), ("op", "-")):
+            sign = 1 if take()[1] == "+" else -1
+            acc = add(acc, term(), sign)
+        return acc
+
+    def term():
+        acc = unary()
+        while peek() in (("op", "*"), ("op", "/")):
+            if take()[1] == "*":
+                acc = mul(acc, unary())
+            else:
+                divisor = unary()
+                if set(divisor) - {()} or not divisor:
+                    raise ValueError(f"division by a non-constant in {text!r}")
+                acc = {k: c / divisor[()] for k, c in acc.items()}
+        return acc
+
+    def power():
+        base_ = atom()
+        if peek() == ("op", "**"):
+            take()
+            exponent = unary()
+            if set(exponent) != {()} or not float(exponent[()]).is_integer() \
+                    or exponent[()] < 0:
+                raise ValueError(f"only non-negative integer powers in {text!r}")
+            out = {(): 1}
+            for _ in range(int(exponent[()])):
+                out = mul(out, base_)
+            return out
+        return base_
+
+    def unary():
+        kind, value = peek()
+        if (kind, value) in (("op", "+"), ("op", "-")):
+            take()
+            operand = unary()
+            return operand if value == "+" else {k: -c for k, c in operand.items()}
+        return power()
+
+    def atom():
+        kind, value = take()
+        if kind == "num":
+            return {(): value} if value != 0 else {}
+        if kind == "name":
+            return {(value,): 1}
+        if (kind, value) == ("op", "("):
+            inner = expr()
+            if take() != ("op", ")"):
+                raise ValueError(f"unbalanced parentheses in {text!r}")
+            return inner
+        raise ValueError(f"unexpected {value!r} in {text!r}")
+
+    result = expr()
+    if peek()[0] != "end":
+        raise ValueError(f"trailing input {peek()[1]!r} in {text!r}")
+    return result
+
+
+class EquationInfo:
+    """One PDE equation 'lhs == rhs_name' (reference multigrid.py:40-71).
+
+    ``linear_form`` is the expanded left-hand side (parse_linear_form) with
+    ``constants`` substituted; ``@level`` tags are stripped."""
+
+    def __init__(self, name: str, level: int, expr_str: str, constants=None):
         self.name = name
         self.level = level
         stripped = " ".join(tok.split("@")[0] for tok in expr_str.split(" "))
         lhs, rhs = stripped.split("==")
-        self.sympy_expr = sympy.parsing.sympy_parser.parse_expr(lhs)
+        self.linear_form = parse_linear_form(lhs, constants)
         self.rhs_name = rhs.strip()
         self.associated_field = None
 
 
+def _term_sort_key(monomial):
+    """Order of the summands of an operator entry: constants first, then
+    bare operators, then scaled products — each group by operator names
+    (the canonical order a computer-algebra expand/collect yields)."""
+    names, coefficient = monomial
+    unit = isinstance(coefficient, int) and coefficient == 1
+    rank = 0 if not names else 1 if unit and len(names) == 1 else 2
+    return rank, names, abs(coefficient)
+
+
 def generate_operator_entries_from_equation(equation, operators: list, fields, grid):
-    """sympy expand/collect the equation lhs into a block row of IR operators
-    (reference multigrid.py:74-119)."""
-    row = []
-    indices = []
+    """Collect the equation's linear form per field into a block row of IR
+    operators (reference multigrid.py:74-119)."""
 
-    def descend(expr, field_index):
-        if expr.is_Number:
+    def operator(name, field_index):
+        info = next(op for op in operators if op.name == name)
+        return base.Operator(
+            name, grid[field_index], _as_generator(info.stencil_generator)
+        )
+
+    def monomial(names, coefficient, field_index):
+        unit = isinstance(coefficient, int) and coefficient == 1
+        if not names:
             identity = base.Identity(grid[field_index])
-            if expr == sympy.sympify(1):
-                return identity
-            return base.Scaling(float(expr.evalf()), identity)
-        if expr.is_Symbol:
-            info = next(op for op in operators if op.name == expr.name)
-            return base.Operator(
-                expr.name, grid[field_index], _as_generator(info.stencil_generator)
-            )
-        if expr.is_Mul:
-            acc = descend(expr.args[-1], field_index)
-            for arg in expr.args[-2::-1]:
-                if arg.is_Number:
-                    acc = base.Scaling(float(arg.evalf()), acc)
-                else:
-                    acc = base.Multiplication(descend(arg, field_index), acc)
-            return acc
-        if expr.is_Add:
-            acc = descend(expr.args[0], field_index)
-            for arg in expr.args[1:]:
-                acc = base.Addition(descend(arg, field_index), acc)
-            return acc
-        raise RuntimeError(f"Invalid expression in equation: {expr}")
+            return identity if unit else base.Scaling(float(coefficient), identity)
+        acc = operator(names[-1], field_index)
+        for name in names[-2::-1]:
+            acc = base.Multiplication(operator(name, field_index), acc)
+        return acc if unit else base.Scaling(float(coefficient), acc)
 
-    expanded = sympy.expand(equation.sympy_expr)
-    for i, field in enumerate(fields):
-        if field in expanded.free_symbols:
-            term = sympy.collect(expanded, field, evaluate=False)[field]
-            row.append(descend(term, i))
-            indices.append(i)
+    per_field = {i: {} for i in range(len(fields))}
+    for names, coefficient in equation.linear_form.items():
+        hits = [i for i, field in enumerate(fields) if field in names]
+        if not hits:
+            continue
+        if len(hits) > 1 or names.count(fields[hits[0]]) > 1:
+            raise ValueError(
+                f"equation {equation.name} is not linear in its fields: "
+                f"term {'*'.join(names)}"
+            )
+        rest = list(names)
+        rest.remove(fields[hits[0]])
+        per_field[hits[0]][tuple(rest)] = coefficient
+    row = []
     for i in range(len(grid)):
-        if i not in indices:
+        terms = sorted(per_field.get(i, {}).items(), key=_term_sort_key)
+        if not terms:
             row.append(base.ZeroOperator(grid[i]))
-            indices.append(i)
-    return [op for _, op in sorted(zip(indices, row), key=lambda p: p[0])]
+            continue
+        acc = monomial(*terms[0], i)
+        for names, coefficient in terms[1:]:
+            acc = base.Addition(monomial(names, coefficient, i), acc)
+        row.append(acc)
+    return row
 
 
 def _as_generator(stencil_or_generator):

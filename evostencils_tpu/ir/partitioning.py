@@ -3,8 +3,8 @@
 `Single` — one full sweep (Jacobi-type, all points simultaneously).
 `RedBlack` — two half-sweeps over the checkerboard colors; the second
 color sees the updates of the first (Gauss–Seidel-type coupling that is
-still fully data-parallel within each color — ideal for the TPU VPU,
-realized as masked full-grid updates in ops/smoothers.py).
+still fully data-parallel within each color, realized as masked
+full-grid updates in backend/lowering.py).
 """
 
 from evostencils_tpu.stencils import constant, periodic

@@ -1,7 +1,7 @@
 """IR analysis passes (reference ir/transformations.py:6-145).
 
 The reference's sympy-based local-system extraction existed to emit
-ExaSlang `solve locally` text; the TPU backend instead assembles local
+ExaSlang `solve locally` text; the JAX backend instead assembles local
 system matrices numerically (ops/smoothers.build_block_solve_spec), so the passes kept here
 are the structural ones: iterate lookup, coarsest-level computation,
 cache invalidation, and a canonical string used as XLA compile-cache key.
@@ -174,7 +174,7 @@ def canonical_string(expression, parameterize_relaxation: bool = False) -> str:
     Two cycles with the same canonical string lower to the same jitted
     function (same sequence of kernels / relaxation factors / partitions),
     so sharing it as a cache key eliminates duplicate XLA compilations —
-    the TPU analog of the reference's str(tree) fitness cache
+    the analog of the reference's str(tree) fitness cache
     (reference optimization/program.py:188-204).
 
     The string is emitted in SSA form (one numbered line per distinct DAG

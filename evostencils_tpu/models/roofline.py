@@ -1,4 +1,4 @@
-"""Roofline performance model, recalibrated to TPU.
+"""Roofline performance model of the device the program runs on.
 
 Same estimation structure as the reference PerformanceEvaluator
 (model_based_prediction/performance.py:6-271): walk the cycle IR counting
@@ -6,25 +6,21 @@ operations and transferred words per grid cell, convert to runtime via
 min(peak_compute, AI · bandwidth), add per-node runtimes bottom-up with
 memoization; red-black sweeps get an empirical penalty factor; the
 coarse-grid-solver cost is injected (here: the cost of one dense matvec
-of the assembled inverse on the MXU).
+of the assembled inverse).
 
-Defaults model one TPU v5e chip driving f32 stencil sweeps on the VPU:
-  peak_performance ≈ 3.9e12 FLOP/s (8×128 f32 lanes × ~2 FMA-issue @ 0.94 GHz),
-  peak_bandwidth   ≈ 8.1e11 B/s HBM,
-  bytes_per_word   = 4 (float32).
-Stencil sweeps are bandwidth-bound at these ratios, exactly as on the
-reference's CPU — only the constants change.
+Peaks come from utils/peaks.py, keyed by the device kind; an unknown
+device raises.  Stencil sweeps are bandwidth-bound at these ratios,
+exactly as on the reference's CPU — only the constants change.
 
-Calibration: `red_black_penalty` and `kernel_launch_overhead` are fitted
-to per-cycle device timings of lowered reference cycles on the real chip
-(scripts/calibrate_roofline.py; measurements committed under
-artifacts/roofline_calibration.json and asserted against the model in
-tests/test_models.py).  The reference's 1.4303… penalty was likewise
-"experimentally obtained" (performance.py:93-94).
+Calibration: the empirical factors (red-black penalty, XLA fusion,
+single-sweep fusion, intergrid surcharge, kernel launch overhead) are
+neutral (1.0 / 0.0) until scripts/calibrate_roofline.py has fitted them to
+per-cycle device timings on the card.  The reference's 1.4303… penalty
+was likewise "experimentally obtained" (performance.py:93-94).
 
 Besides runtime the walker also accumulates the modeled HBM traffic in
-bytes (`estimate_traffic`), which the headline benchmark divides by the
-measured per-cycle time to report achieved-bandwidth utilization.
+bytes (`estimate_traffic`), which divided by a measured per-cycle time
+gives an achieved-bandwidth upper bound.
 """
 
 from __future__ import annotations
@@ -33,82 +29,42 @@ from functools import reduce
 
 from evostencils_tpu.ir import base, partitioning, system
 from evostencils_tpu.stencils import periodic
-
-TPU_V5E_PEAK_F32_FLOPS = 3.9e12
-TPU_V5E_HBM_BANDWIDTH = 8.1e11
-# Fitted on TPU v5e (scripts/calibrate_roofline.py, log-rmse 0.13 over 8
-# measured cycles at 511²/1023², exact-f32 transfer default): red-black
-# smoothing costs ~this factor over the single-sweep roofline point (the
-# reference's CPU fit was 1.4303, performance.py:93-94; the fused Pallas
-# kernel brings the TPU penalty close to the pure traffic ratio).
-RED_BLACK_PENALTY_TPU = 1.1
-# Fused-kernel fixed cost per stencil pass (pipeline fill + dispatch).
-# The fit drives this to zero: per-kernel overheads on the devices are
-# below the measurement floor once loops fuse.
-KERNEL_LAUNCH_OVERHEAD_TPU = 0.0
-# XLA fuses elementwise chains into stencil passes: the executable moves
-# ~this factor fewer HBM words than the reference's unfused per-op count
-# (which the walker mirrors).  Fitted on-chip alongside the other
-# constants (scripts/calibrate_roofline.py).
-XLA_FUSION_FACTOR_TPU = 3.5
-# Single-partitioned (plain Jacobi) smoothing steps fuse residual + scale +
-# update into ONE full-grid pass with no color masking or halo re-reads, so
-# XLA moves fewer words than on the red-black path.  Fitted on-chip as a
-# separate stage over the jacobi calibration cases (round-2 weakness: the
-# shared factor over-predicted V(2,2)_jacobi_512 by 1.57×).
-SINGLE_SWEEP_FUSION_TPU = 4.25
-# Intergrid transfers run as exact-f32 MXU contractions (3 bf16-product
-# passes per matmul, Precision.HIGHEST — ops/intergrid.py): their real cost
-# exceeds the plain word count the walker mirrors.  Fitted on-chip from the
-# V-cycle calibration cases (scripts/calibrate_roofline.py).
-INTERGRID_FACTOR_TPU = 4.0
+from evostencils_tpu.utils.peaks import current_device_peaks, peaks_for
 
 
 class PerformanceEvaluator:
     def __init__(
         self,
-        peak_performance: float = TPU_V5E_PEAK_F32_FLOPS,
-        peak_bandwidth: float = TPU_V5E_HBM_BANDWIDTH,
+        device_kind: str | None = None,
         bytes_per_word: int = 4,
         runtime_coarse_grid_solver: float = 0.0,
-        red_black_penalty: float = RED_BLACK_PENALTY_TPU,
-        kernel_launch_overhead: float = KERNEL_LAUNCH_OVERHEAD_TPU,
-        red_black_traffic_factor: float = 3.25 / 3.0,
-        fusion_factor: float = None,
-        single_sweep_fusion: float = None,
-        intergrid_factor: float = None,
+        red_black_penalty: float = 1.0,
+        kernel_launch_overhead: float = 0.0,
+        fusion_factor: float = 1.0,
+        single_sweep_fusion: float = 1.0,
+        intergrid_factor: float = 1.0,
     ):
-        self.peak_performance = peak_performance
-        self.peak_bandwidth = peak_bandwidth
+        """``device_kind`` selects the peaks (None: the first JAX device)."""
+        peaks = (
+            current_device_peaks() if device_kind is None
+            else peaks_for(device_kind)
+        )
+        self.peak_performance = peaks.f32_flops
+        self.peak_bandwidth = peaks.hbm_bytes_per_s
         self.bytes_per_word = bytes_per_word
         self.runtime_coarse_grid_solver = runtime_coarse_grid_solver
         self.red_black_penalty = red_black_penalty
-        # Per-fused-kernel fixed cost: on TPU each fused stencil pass has a
-        # dispatch/pipeline overhead that dominates for tiny coarse grids.
+        # Per-fused-kernel fixed cost: dominates for tiny coarse grids.
         self.kernel_launch_overhead = kernel_launch_overhead
-        # Traffic (not time) multiplier for red-black: the fused kernel's
-        # halo re-reads (ops/pallas_kernels.py) add ~8% over the 3-pass
-        # single-sweep minimum.
-        self.red_black_traffic_factor = red_black_traffic_factor
-        # Effective words = counted words / fusion_factor (see
-        # XLA_FUSION_FACTOR_TPU).
-        self.fusion_factor = (
-            fusion_factor if fusion_factor is not None else XLA_FUSION_FACTOR_TPU
-        )
-        # Extra word-fusion of single-partitioned smoothing sweeps (see
-        # SINGLE_SWEEP_FUSION_TPU).
-        self.single_sweep_fusion = (
-            single_sweep_fusion
-            if single_sweep_fusion is not None
-            else SINGLE_SWEEP_FUSION_TPU
-        )
-        # Runtime multiplier of intergrid-transfer passes (exact-f32 MXU
-        # contraction cost; see INTERGRID_FACTOR_TPU).
-        self.intergrid_factor = (
-            intergrid_factor
-            if intergrid_factor is not None
-            else INTERGRID_FACTOR_TPU
-        )
+        # Effective words = counted words / fusion_factor: XLA fuses
+        # elementwise chains into stencil passes, so the executable moves
+        # fewer words than the reference's unfused per-op count.
+        self.fusion_factor = fusion_factor
+        # Extra word-fusion of single-partitioned (plain Jacobi) smoothing
+        # sweeps, which fuse residual + scale + update into one pass.
+        self.single_sweep_fusion = single_sweep_fusion
+        # Runtime multiplier of intergrid-transfer passes.
+        self.intergrid_factor = intergrid_factor
 
     def set_runtime_of_coarse_grid_solver(self, runtime: float):
         self.runtime_coarse_grid_solver = runtime
@@ -307,23 +263,20 @@ class PerformanceEvaluator:
             )
             if is_smoothing and not is_red_black and not is_block_solve:
                 # Plain-Jacobi sweeps fuse residual+scale+update into one
-                # unmasked full-grid pass: fewer HBM words than red-black
-                # (see SINGLE_SWEEP_FUSION_TPU).  Fitted on point-Jacobi
-                # cases only, so block-local solves are excluded.
+                # unmasked full-grid pass: fewer HBM words than red-black.
+                # Block-local solves are excluded.
                 words = words / self.single_sweep_fusion
             cells = self._cells(expression.grid)
             step = self.compute_runtime(operations, words, operations * cells)
             step_bytes = self.compute_bytes(operations, words, operations * cells)
             if ig_pair is not None and self.intergrid_factor != 1.0:
-                # Surcharge only the transfer part of the pass (the exact-
-                # f32 MXU contraction cost; see INTERGRID_FACTOR_TPU).
+                # Surcharge only the transfer part of the pass.
                 ig_ops, ig_words = ig_pair
                 step += (self.intergrid_factor - 1.0) * self.compute_runtime(
                     ig_ops, ig_words, ig_ops * cells
                 )
             if is_red_black:
                 step *= self.red_black_penalty
-                step_bytes *= self.red_black_traffic_factor
             return runtime + step, traffic + step_bytes
 
         if isinstance(expression, base.Residual):
@@ -357,9 +310,9 @@ class PerformanceEvaluator:
                 elif self.runtime_coarse_grid_solver:
                     runtime += self.runtime_coarse_grid_solver
                 else:
-                    # Dense inverse matvec on the MXU: 2·N² flops at matmul
-                    # rates, N = coarse unknowns; the N² matrix is streamed
-                    # from HBM each application.
+                    # Dense inverse matvec: 2·N² flops, N = coarse
+                    # unknowns; the N² matrix is streamed from device
+                    # memory each application.
                     n = self._cells(op1.grid) * (
                         len(op1.grid) if isinstance(op1.grid, list) else 1
                     )

@@ -1,10 +1,10 @@
 """Coarse-grid solver: direct dense solve via a precomputed inverse.
 
 The coarsest grids of the evolved hierarchies are tiny (≤ a few thousand
-unknowns), so the TPU-native strategy is to assemble the coarse system
-matrix once (numpy, at lowering time), invert it, and apply the solve as a
-single dense matmul on device — a perfect MXU shape, with zero iteration
-overhead and no host synchronization.  This replaces the reference's
+unknowns), so the coarse system matrix is assembled once (numpy, at
+lowering time), inverted, and the solve applied as a single dense
+matrix-vector product on device — no iteration overhead and no host
+synchronization.  This replaces the reference's
 `gen_mgCycle@coarsest` CG/BiCGStab calls inside generated C++
 (reference code_generation/exastencils.py:896,1025-1101); iterative coarse
 solvers remain available through ops/krylov.py when the grammar supplies a
@@ -80,7 +80,10 @@ class DenseSolveSpec:
 
     def apply(self, r_fields: Sequence[jax.Array]) -> Tuple[jax.Array, ...]:
         flat = jnp.concatenate([r.reshape(-1) for r in r_fields])
-        sol = jnp.asarray(self.inv) @ flat
+        # HIGHEST: a float32 product may otherwise run in TF32 on the GPU
+        # (~1e-3 relative error), which changes the coarse correction.
+        sol = jnp.matmul(jnp.asarray(self.inv), flat,
+                         precision=jax.lax.Precision.HIGHEST)
         out = []
         start = 0
         for size, shape in zip(self.sizes, self.field_shapes):

@@ -12,19 +12,12 @@ exactly the `injection ∘ stencil` factorizations the reference's LFA layer
 uses (reference model_based_prediction/convergence.py:160-163), so the
 executable kernels and the Fourier analysis agree by construction.
 
-TPU execution strategy (measured on v5e at 1023²→511², one
-restrict+prolong round trip):
-
-  * separable stencils (full weighting, multilinear — every default and
-    most evolved transfers): per-axis dense factor matrices contracted
-    on the MXU (`R₀ · x · R₁ᵀ`), ~4 µs — speed of light;
-  * non-separable real stencils: XLA ConvGeneralDilated (stride-c
-    correlation / lhs-dilated transposed correlation), ~2.4 ms — the
-    1×1-channel conv is degenerate for the TPU backend but still ~10×
-    the strided-slice formulation;
-  * complex non-separable: strided slices / scatter (stride-2 access
-    along the 128-lane minor dimension degenerates to lane-granular
-    gathers, ~25 ms — last resort only).
+Both are written as sums of strided slices of the zero-padded field, which
+XLA fuses into one loop per transfer: about two array passes and O(1)
+operations per point.  Measured on an H100 SXM (700 W), f32, one restrict +
+prolong round trip: 19.4 µs at 1023²↔511² and 11.9 µs at 511²↔255²,
+against 40.1 / 28.5 µs for XLA's strided convolution and 136.1 / 57.7 µs
+for dense per-axis (m×f) matrix products.
 """
 
 from __future__ import annotations
@@ -33,127 +26,9 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from evostencils_tpu.stencils import constant
 from evostencils_tpu.ops.stencil_ops import apply_constant_stencil, pad_zeros
-
-_factor_cache: dict = {}
-
-
-def _separable_factors(stencil: constant.Stencil, ndim: int):
-    """Per-axis 1D weight vectors whose outer product is the stencil's
-    dense kernel, or None when the stencil is not rank-1 separable.
-    Sequential rank-1 SVD peeling handles any dimensionality."""
-    reach = stencil.max_reach()
-    shape = tuple(2 * r + 1 for r in reach)
-    kernel = np.zeros(shape, dtype=np.complex128)
-    for offset, value in stencil.entries:
-        kernel[tuple(o + r for o, r in zip(offset, reach))] = value
-    factors = []
-    rest = kernel
-    for axis in range(ndim - 1):
-        mat = rest.reshape(rest.shape[0], -1)
-        u, s, vh = np.linalg.svd(mat, full_matrices=False)
-        if s.size > 1 and s[1] > 1e-12 * max(s[0], 1e-300):
-            return None
-        factors.append(u[:, 0] * s[0])
-        rest = vh[0].reshape(rest.shape[1:])
-    factors.append(rest)
-    if all(np.abs(f.imag).max() < 1e-14 for f in factors):
-        factors = [f.real for f in factors]
-    return factors, reach
-
-
-def _restrict_matrix(w, r, m, f, c):
-    """(m × f) axis restriction: coarse i ← Σ_o w[o+r]·fine[c·i + c−1 + o]."""
-    R = np.zeros((m, f), dtype=w.dtype)
-    for o in range(-r, r + 1):
-        for i in range(m):
-            j = c * i + c - 1 + o
-            if 0 <= j < f:
-                R[i, j] = w[o + r]
-    return R
-
-
-def _prolong_matrix(w, r, f, m, c):
-    """(f × m) axis prolongation: fine j ← Σ_i w[c·i + c−1 − j + r]·coarse[i]."""
-    P = np.zeros((f, m), dtype=w.dtype)
-    for i in range(m):
-        for o in range(-r, r + 1):
-            j = c * i + c - 1 + o
-            if 0 <= j < f:
-                P[j, i] = w[r - o] if 0 <= r - o < len(w) else 0.0
-    return P
-
-
-def _axis_matrices(stencil, fine_shape, coarse_shape, coarsening, dtype, kind):
-    key = (kind, stencil.entries, tuple(fine_shape), tuple(coarse_shape),
-           tuple(coarsening), jnp.dtype(dtype).name)
-    if key in _factor_cache:
-        return _factor_cache[key]
-    ndim = len(fine_shape)
-    sep = _separable_factors(stencil, ndim)
-    if sep is None:
-        _factor_cache[key] = None
-        return None
-    factors, reach = sep
-    np_dtype = np.dtype(jnp.dtype(dtype))
-    mats = []
-    for a in range(ndim):
-        w = factors[a].astype(np_dtype)
-        if kind == "restrict":
-            mats.append(_restrict_matrix(
-                w, reach[a], coarse_shape[a], fine_shape[a], coarsening[a]))
-        else:
-            mats.append(_prolong_matrix(
-                w, reach[a], fine_shape[a], coarse_shape[a], coarsening[a]))
-    # Cache NUMPY matrices only: jnp constants created inside a trace are
-    # tracers and must not escape to global state.
-    result = tuple(mats)
-    _factor_cache[key] = result
-    return result
-
-
-def _contract_axes(x: jax.Array, mats) -> jax.Array:
-    """Apply mats[a] along axis a: out = Π_a M_a ×_a x (MXU contractions).
-
-    Precision.HIGHEST forces true-f32 multiplication (the TPU MXU's
-    default f32 matmul rounds inputs to bf16, ~7e-3 transfer error);
-    transfers remain a negligible share of cycle time."""
-    for a, M in enumerate(mats):
-        x = jnp.moveaxis(
-            jnp.tensordot(
-                jnp.asarray(M), x, axes=(1, a),
-                precision=jax.lax.Precision.HIGHEST,
-            ),
-            0, a,
-        )
-    return x
-
-
-def _stencil_kernel(stencil: constant.Stencil, ndim: int, dtype):
-    """Dense correlation kernel: weight w_o at index o + reach."""
-    reach = stencil.max_reach()
-    shape = tuple(2 * r + 1 for r in reach)
-    kernel = jnp.zeros(shape, dtype=dtype)
-    for offset, value in stencil.entries:
-        index = tuple(o + r for o, r in zip(offset, reach))
-        kernel = kernel.at[index].set(value)
-    return kernel, reach
-
-
-def _conv_dnums(ndim: int):
-    spatial = "".join(chr(ord("0") + i) for i in range(ndim))
-    return jax.lax.conv_dimension_numbers(
-        (1, 1) + (1,) * ndim,
-        (1, 1) + (1,) * ndim,
-        ("NC" + spatial, "OI" + spatial, "NC" + spatial),
-    )
-
-
-def _supports_conv(x: jax.Array) -> bool:
-    return not jnp.iscomplexobj(x)
 
 
 def restrict(
@@ -163,33 +38,6 @@ def restrict(
     coarsening: Tuple[int, ...],
 ) -> jax.Array:
     """coarse[ci] = Σ_o w_o · fine[c·(ci+1)-1 + o] (zero outside interior)."""
-    mats = _axis_matrices(
-        stencil, fine.shape, coarse_shape, coarsening, fine.dtype, "restrict"
-    )
-    if mats is not None:
-        return _contract_axes(fine, mats)
-    if _supports_conv(fine):
-        ndim = fine.ndim
-        kernel, reach = _stencil_kernel(stencil, ndim, fine.dtype)
-        # out[i] = Σ_k K[k] · fine[c·i + k − p_lo] with k = o + r and the
-        # target index c·(i+1) − 1 + o  ⇒  p_lo = r − (c − 1) per axis
-        # (negative values crop); the high pad makes the strided window
-        # count equal the coarse extent.
-        padding = tuple(
-            (r - (c - 1),
-             (m - 1) * c + (2 * r + 1) - f - (r - (c - 1)))
-            for r, c, m, f in zip(reach, coarsening, coarse_shape, fine.shape)
-        )
-        out = jax.lax.conv_general_dilated(
-            fine[None, None],
-            kernel[None, None],
-            window_strides=coarsening,
-            padding=padding,
-            dimension_numbers=_conv_dnums(ndim),
-            preferred_element_type=fine.dtype,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        return out[0, 0]
     reach = stencil.max_reach()
     padded = pad_zeros(fine, reach)
     out = None
@@ -208,9 +56,16 @@ def restrict(
 def inject_to_fine(
     coarse: jax.Array, fine_shape: Tuple[int, ...], coarsening: Tuple[int, ...]
 ) -> jax.Array:
-    zeros = jnp.zeros(fine_shape, dtype=coarse.dtype)
-    index = tuple(slice(c - 1, None, c) for c in coarsening)
-    return zeros.at[index].set(coarse)
+    """fine[c·i + c − 1] = coarse[i], zero elsewhere.
+
+    An interior-padded `lax.pad`, not a scatter: XLA's GPU backend
+    expands a complex128 scatter into a serial loop with one step per
+    coarse point."""
+    config = [
+        (c - 1, f - (c - 1) - ((m - 1) * c + 1), c - 1)
+        for m, f, c in zip(coarse.shape, fine_shape, coarsening)
+    ]
+    return jax.lax.pad(coarse, jnp.zeros((), coarse.dtype), config)
 
 
 def prolong(
@@ -220,35 +75,5 @@ def prolong(
     coarsening: Tuple[int, ...],
 ) -> jax.Array:
     """fine = stencil ∘ injection(coarse); multilinear weights interpolate."""
-    mats = _axis_matrices(
-        stencil, fine_shape, coarse.shape, coarsening, coarse.dtype, "prolong"
-    )
-    if mats is not None:
-        return _contract_axes(coarse, mats)
-    if _supports_conv(coarse):
-        ndim = coarse.ndim
-        kernel, reach = _stencil_kernel(stencil, ndim, coarse.dtype)
-        # fine[j] = Σ_o w_o · dilated[j + o − (c−1)] where the lhs-dilated
-        # input places coarse[ci] at index c·ci; with k = o + r the conv
-        # needs low padding p = r + (c − 1), and the high padding tops the
-        # output up to the fine extent.
-        dil_len = tuple(
-            (s - 1) * c + 1 for s, c in zip(coarse.shape, coarsening)
-        )
-        padding = tuple(
-            (r + (c - 1), f - d + r - (c - 1))
-            for r, c, f, d in zip(reach, coarsening, fine_shape, dil_len)
-        )
-        out = jax.lax.conv_general_dilated(
-            coarse[None, None],
-            kernel[None, None],
-            window_strides=(1,) * ndim,
-            padding=padding,
-            lhs_dilation=coarsening,
-            dimension_numbers=_conv_dnums(ndim),
-            preferred_element_type=coarse.dtype,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        return out[0, 0]
     injected = inject_to_fine(coarse, fine_shape, coarsening)
     return apply_constant_stencil(injected, stencil)

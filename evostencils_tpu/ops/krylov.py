@@ -2,7 +2,7 @@
 
 Each solver takes a matrix-free `apply_a(state) -> state` closure and runs
 a *static* number of iterations inside `lax.fori_loop`, so the whole solve
-compiles into one XLA computation with no dynamic shapes — the TPU-native
+compiles into one XLA computation with no dynamic shapes — the JAX-native
 replacement for the reference's ExaSlang-generated CG/BiCGStab/MinRes/CR
 coarse- and outer-solvers (reference ir/krylov_subspace.py:32-45,
 code_generation/exastencils.py:1025-1101).

@@ -4,11 +4,9 @@ Grid functions are dense jnp arrays over the *interior* nodes of a
 structured grid with homogeneous Dirichlet boundaries; boundary values are
 folded into the right-hand side at problem setup.  A constant stencil
 application is a sum of shifted loads of the zero-padded field — XLA fuses
-the whole sum into a single VPU loop, and on TPU the compiler lays the
-planes out along (sublane, lane) tiles, so this formulation is already
-bandwidth-optimal for the 5/7/9-point stencils that dominate multigrid.
-Hot fused paths (residual + smoother update in one pass) live in
-ops/smoothers.py and ops/pallas_kernels.py.
+the whole sum into a single loop, one read of the field and one write,
+for the 5/7/9-point stencils that dominate multigrid.  Residual and
+smoother update fuse the same way (ops/smoothers.py, backend/lowering.py).
 
 Replaces the external generated-C++ stencil loops of the reference
 (SURVEY.md §2.2; reference code_generation/exastencils.py:684-925 emitted

@@ -3,7 +3,7 @@
 Parity with the reference's intergrid-transfer optimizer
 (reference optimization/intergrid_transfer.py:10-144, which drives
 deap.cma and evaluates each weight vector by patching the generated C++'s
-global variables and recompiling).  TPU-native re-design: the weight
+global variables and recompiling).  JAX-native re-design: the weight
 vector parameterizes the R/P stencils of a two-grid correction whose
 spectral radius is evaluated by the JAX LFA model (models/lfa.py) —
 thousands of evaluations per second, no compilation in the loop — with a

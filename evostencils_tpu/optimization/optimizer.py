@@ -14,7 +14,7 @@ Feature parity with the reference Optimizer
     cycle becomes the coarse-grid solver expression of the next run,
   * hall-of-fame / Pareto archives + per-generation logbooks.
 
-Differences by design (TPU-native): evaluation parallelism is the
+Differences by design (JAX-native): evaluation parallelism is the
 device-dispatch layer (parallel/dispatch.py) instead of mpi4py ranks, and
 checkpoints store trees as canonical strings (re-parsed through the typed
 grammar) rather than pickled closures.
@@ -447,7 +447,7 @@ class Optimizer:
         Distinct cycle structures are XLA-compiled concurrently first
         (program_generator.precompile); same-structure individuals (the
         dominant offspring class: ω-retuning mutations) then evaluate in
-        batched vmapped dispatches; the rest run serially — the TPU analog
+        batched vmapped dispatches; the rest run serially — the analog
         of the reference's per-rank parallel java+make (program.py:478-502)."""
         from evostencils_tpu.ir.transformations import canonical_string
 

@@ -53,9 +53,7 @@ def tune_relaxation_factors(
     from evostencils_tpu.ops import stencil_ops as sops
 
     if lowering is None:
-        # The Pallas fused kernel has no differentiation rule — the
-        # tuning pass uses the pure-jnp lowering (XLA still fuses it).
-        lowering = CycleLowering(problem.dtype, use_pallas=False)
+        lowering = CycleLowering(problem.dtype)
     if measure_cycles is None:
         measure_cycles = 5
     step, omega_values = lowering.lower_parameterized(expression)

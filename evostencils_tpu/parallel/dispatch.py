@@ -3,7 +3,7 @@
 The reference distributes offspring across MPI ranks, each rank owning a
 private ExaStencils workspace (reference optimization/program.py:285-310,
 478-502; code_generation/exastencils.py:71-91).  Every evolved individual
-is a *different program*, so the TPU equivalent is not vmap but pipelined
+is a *different program*, so the JAX equivalent is not vmap but pipelined
 dispatch: a thread pool traces/compiles individuals concurrently on host
 CPUs while the accelerator drains execution asynchronously (JAX dispatch
 is async; compilation is the serial bottleneck the pool hides).

@@ -1,7 +1,7 @@
 """Device-mesh execution: spatially sharded grids + batched evaluation.
 
-The TPU-native replacement for the reference's two external parallel
-layers (SURVEY.md §2.3): ExaStencils' MPI domain decomposition with
+The JAX replacement for the reference's two external parallel layers
+(SURVEY.md §2.3): ExaStencils' MPI domain decomposition with
 `communicate` halo exchanges, and OpenMP threading inside a rank.
 
 Design: fields are sharded over a `jax.sharding.Mesh` with axes
@@ -10,13 +10,14 @@ Design: fields are sharded over a `jax.sharding.Mesh` with axes
   * "sp" — spatial sharding of the leading grid axis.
 Stencil applications are written as pad+shift sums (ops/stencil_ops.py),
 so under jit with sharded operands XLA's SPMD partitioner inserts the
-minimal halo collectives (collective-permutes over ICI) automatically —
-no hand-written NCCL/MPI analog is needed, and the same code runs
-unmodified on 1 chip or a pod slice.
+halo exchanges (collective-permutes, which XLA hands to NCCL)
+automatically — no hand-written MPI analog is needed, and the same code
+runs unmodified on one device or several.  The GPUs of one host are
+joined all to all, so the mesh shape follows the algorithm alone.
 
-Grids below `replicate_below` interior rows per shard are executed fully
-replicated (multigrid coarse levels are latency-bound; replicating them is
-the standard TPU trade — compute is free, collectives are not).
+Coarse grids, created inside a step by restriction, fall below the
+partitioner's profitability threshold and are resharded or replicated
+automatically: multigrid coarse levels are latency-bound.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ def build_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None):
     """Create a (dp, sp) mesh over the available devices."""
     devices = jax.devices()
     n = n_devices or len(devices)
+    if n > len(devices):
+        raise ValueError(f"a mesh of {n} devices needs {n}; JAX found {len(devices)}")
+    # jax.devices() lists each device once: every shard gets its own.
     devices = np.asarray(devices[:n])
     if dp is None:
         # favor spatial sharding; dp absorbs what sp cannot
@@ -63,25 +67,6 @@ def shard_state(state, mesh: Mesh, batched: bool = False):
     return tuple(
         jax.lax.with_sharding_constraint(x, s) for x, s in zip(state, specs)
     )
-
-
-def sharded_step(step: Callable, mesh: Mesh, replicate_below: int = 64) -> Callable:
-    """Wrap a lowered cycle step with spatial sharding constraints.
-
-    The fine-grid state is pinned to ("sp", None, ...); XLA partitions every
-    fused stencil sum accordingly and materializes one-row halo exchanges as
-    collective permutes.  Coarse grids (created inside `step` by
-    restriction) fall below the partitioner's profitability threshold and
-    are resharded/replicated automatically.
-    """
-
-    def wrapped(u, f):
-        u = shard_state(u, mesh)
-        f = shard_state(f, mesh)
-        out = step(u, f)
-        return shard_state(out, mesh)
-
-    return wrapped
 
 
 def batched_sharded_evaluation(

@@ -2,7 +2,7 @@
 
 Replaces the reference's ExaSlang DSL files + parser
 (example_problems/*.exa2/.exa3 + code_generation/parser.py): a problem is
-declared directly in Python as sympy equations over named operators with
+declared directly in Python as linear equations over named operators with
 stencil generators, a level range, and a right-hand side.  Everything the
 grammar needs (EquationInfo / OperatorInfo / fields) and everything the
 backend needs (grids, system operator, RHS arrays) derives from here.
@@ -14,7 +14,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-import sympy
 
 from evostencils_tpu.grammar import multigrid as mg
 from evostencils_tpu.ir import base, system
@@ -57,7 +56,7 @@ class Problem:
         self.min_level = min_level
         self.max_level = max_level
         self.field_names = list(fields)
-        self.fields = [sympy.Symbol(f) for f in fields]
+        self.fields = list(fields)
         self.equation_strings = list(equation_strings)
         self.operator_factories = dict(operator_factories)
         self.rhs_functions = rhs_functions
@@ -74,13 +73,11 @@ class Problem:
     def _build(self):
         self.equations: List[mg.EquationInfo] = []
         self.operators: List[mg.OperatorInfo] = []
-        subs = {sympy.Symbol(k): v for k, v in self.constants.items()}
         for level in range(self.min_level, self.max_level + 1):
             for eq_name, expr in self.equation_strings:
-                info = mg.EquationInfo(eq_name, level, expr)
-                if subs:
-                    info.sympy_expr = info.sympy_expr.subs(subs)
-                self.equations.append(info)
+                self.equations.append(
+                    mg.EquationInfo(eq_name, level, expr, self.constants)
+                )
             for op_name, (factory, op_type) in self.operator_factories.items():
                 self.operators.append(
                     mg.OperatorInfo(op_name, level, factory(level, self.parameters), op_type)
@@ -144,8 +141,7 @@ class Problem:
         With a zero RHS the residual would be identically zero, so problems
         without an RHS function get a fixed pseudo-random f (seeded) —
         equivalent for convergence-factor measurement.  `host=True` keeps
-        everything in numpy (needed when complex arrays must not be
-        materialized as device buffers).
+        everything in numpy (for host-side float64 residual arithmetic).
 
         ``rhs_seed`` forces a seeded random right-hand side even when the
         problem has physical RHS functions: with a zero initial guess the

@@ -38,7 +38,13 @@ import re
 from typing import Dict, List, Optional
 
 import numpy as np
-import sympy
+try:
+    import sympy
+except ImportError as exc:  # optional dependency: only .exa loading needs it
+    raise ImportError(
+        "loading .exa2/.exa3/.exa4 problem files needs sympy; install it "
+        "with `pip install evostencils-tpu[exa]`"
+    ) from exc
 
 from evostencils_tpu.ir import base
 from evostencils_tpu.problems.api import Problem

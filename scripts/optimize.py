@@ -15,14 +15,13 @@ Examples:
 
 import argparse
 import os
-import pickle
 import random
 import sys
 
 
-
-
-def main():
+def run(argv=None):
+    """Parse ``argv`` (default: sys.argv), run the evolution and write the
+    results; returns (generator, populations, halls of fame)."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--problem", default="poisson2d",
                         choices=["poisson2d", "poisson3d", "poisson2d_var",
@@ -99,17 +98,17 @@ def main():
                              "PreconditionedBiCGStab separately")
     parser.add_argument("--mesh", default=None, metavar="DP,SP",
                         help="evaluate on a jax.sharding.Mesh: DP×SP devices "
-                             "(data-parallel × spatial rows); e.g. --mesh 2,4 "
-                             "on 8 devices.  Fine-grid states shard over sp; "
-                             "XLA inserts ICI halo exchanges (test with "
+                             "(data-parallel × spatial rows); e.g. --mesh 1,4 "
+                             "on 4 GPUs.  Fine-grid states shard over sp; "
+                             "XLA inserts the halo exchanges (rehearse with "
                              "XLA_FLAGS=--xla_force_host_platform_device_"
-                             "count=8 JAX_PLATFORMS=cpu)")
+                             "count=4 JAX_PLATFORMS=cpu)")
     parser.add_argument("--multihost", action="store_true",
                         help="split the population across jax.distributed "
                              "processes (launcher must call "
                              "jax.distributed.initialize; the mpi4py-rank "
                              "analog, reference program.py:285-310)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     import jax
 
@@ -125,6 +124,7 @@ def main():
     from evostencils_tpu.models.roofline import PerformanceEvaluator
     from evostencils_tpu.optimization.optimizer import Optimizer
     from evostencils_tpu.problems import build_named_problem, load_problem_file
+    from evostencils_tpu.utils.profiling import evaluation_report
 
     if args.problem_file:
         problem = load_problem_file(args.problem_file, args.knowledge)
@@ -185,7 +185,9 @@ def main():
         convergence_evaluator = ConvergenceEvaluator(
             problem.dimension, problem.coarsening_factors, problem.finest_grid
         )
-        performance_evaluator = PerformanceEvaluator()
+        performance_evaluator = PerformanceEvaluator(
+            device_kind=jax.devices()[0].device_kind
+        )
 
     rng = random.Random(args.seed)
     dispatcher = None
@@ -319,7 +321,13 @@ def main():
                 f.write(f"# tuning REJECTED: rho {rho0} -> {rho1}\n")
                 f.write(f"# rejected omegas: {[round(w, 4) for w in tuned]}\n")
 
+    print(f"Evaluation report: {evaluation_report(generator)}")
     print(f"Results written to {output_dir}/")
+    return generator, pops, hofs
+
+
+def main():
+    run()
     return 0
 
 

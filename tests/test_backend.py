@@ -227,9 +227,11 @@ class TestBlockSmoother:
          (((3, 1),), (7, 7))],
     )
     def test_masked_shift_apply_matches_matmul(self, block, shape):
-        """The TPU-friendly masked-shift formulation must be bit-level
-        equivalent (up to f64 roundoff) to the gather/scatter matmul path,
-        including truncated boundary blocks on non-divisible shapes."""
+        """The masked-shift formulation must equal the plain numpy
+        block-by-block solve (ops/reference.block_solve) up to f64
+        roundoff, including truncated boundary blocks on non-divisible
+        shapes.  (The name predates the removal of the matmul path.)"""
+        from evostencils_tpu.ops import reference as ref
         from evostencils_tpu.ops.smoothers import build_block_solve_spec
         from evostencils_tpu.stencils import periodic as per
 
@@ -239,15 +241,16 @@ class TestBlockSmoother:
         spec = build_block_solve_spec([[bd]], list(block), shape, jnp.float64)
         rng = np.random.default_rng(11)
         r = (jnp.asarray(rng.standard_normal(shape)),)
-        got = spec.apply_masked(r)[0]
-        want = spec.apply_matmul(r)[0]
+        got = spec.apply(r)[0]
+        want = ref.block_solve([np.asarray(r[0])], spec.inv_l, block[0])[0]
         np.testing.assert_allclose(
             np.asarray(got), np.asarray(want), rtol=1e-12, atol=1e-13
         )
 
     def test_masked_shift_apply_matches_matmul_complex_system(self):
         """Complex dtype (Helmholtz) and a 2-field system exercise the
-        inter-field shift planes."""
+        inter-field shift planes, against the numpy reference."""
+        from evostencils_tpu.ops import reference as ref
         from evostencils_tpu.ops.smoothers import build_block_solve_spec
         from evostencils_tpu.stencils import constant, periodic as per
 
@@ -270,8 +273,8 @@ class TestBlockSmoother:
             jnp.asarray(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
             for _ in range(2)
         )
-        got = spec.apply_masked(r)
-        want = spec.apply_matmul(r)
+        got = spec.apply(r)
+        want = ref.block_solve([np.asarray(x) for x in r], spec.inv_l, (2, 2))
         for g, w in zip(got, want):
             np.testing.assert_allclose(
                 np.asarray(g), np.asarray(w), rtol=1e-12, atol=1e-13
@@ -364,8 +367,8 @@ class TestPredictedStagedSolver:
         )
         operator = tl[0].operator
         gen = JaxProgramGenerator(problem, dtype=jnp.float32)
-        lowering32 = CycleLowering(jnp.float32, use_pallas=False)
-        lowering64 = CycleLowering(jnp.float64, use_pallas=False)
+        lowering32 = CycleLowering(jnp.float32)
+        lowering64 = CycleLowering(jnp.float64)
         _, f32_rhs = problem.initial_state(jnp.float32)
 
         results = {}
@@ -406,8 +409,8 @@ class TestPredictedStagedSolver:
         )
         operator = tl[0].operator
         gen = JaxProgramGenerator(problem, dtype=jnp.float32)
-        lowering32 = CycleLowering(jnp.float32, use_pallas=False)
-        lowering64 = CycleLowering(jnp.float64, use_pallas=False)
+        lowering32 = CycleLowering(jnp.float32)
+        lowering64 = CycleLowering(jnp.float64)
         _, f32_rhs = problem.initial_state(jnp.float32)
         expr = reference_cycles.generate_v_cycle(tl, problem.rhs(), 2, 2)
         _, rho, _ = gen.generate_and_evaluate(expr, evaluation_samples=1)
@@ -434,3 +437,36 @@ class TestPredictedStagedSolver:
         # overshooting the target: within 2 cycles + one transient of the
         # uncalibrated count.
         assert outcomes[True][1] <= outcomes[False][1] + 3
+
+
+_FIVE_POINT = constant.Stencil(
+    [((0, 0), 4.0), ((1, 0), -1.0), ((-1, 0), -1.0), ((0, 1), -1.0),
+     ((0, -1), -1.0)]
+)
+_NINE_POINT = constant.Stencil(
+    [((i, j), 20.0 / 6 if (i, j) == (0, 0) else
+      -4.0 / 6 if abs(i) + abs(j) == 1 else -1.0 / 6)
+     for i in (-1, 0, 1) for j in (-1, 0, 1)]
+)
+
+
+@pytest.mark.parametrize("dtype,tolerance", [(jnp.float64, 1e-13), (jnp.float32, 2e-6)])
+@pytest.mark.parametrize("shape", [(15, 15), (161, 96)])
+@pytest.mark.parametrize("stencil", [_FIVE_POINT, _NINE_POINT], ids=["5pt", "9pt"])
+def test_red_black_step_matches_numpy_reference(stencil, shape, dtype, tolerance):
+    """The red-black collective-Jacobi step exactly as the lowering emits
+    it (masked jnp half-sweeps, residual recomputed between colours)
+    against the plain float64 numpy reference, on odd and ragged shapes
+    and for a same-colour-coupled (9-point) stencil."""
+    from evostencils_tpu.ops import reference as ref
+
+    rng = np.random.default_rng(3)
+    u = rng.standard_normal(shape)
+    f = rng.standard_normal(shape)
+    step = CycleLowering(dtype).lower(ref.red_black_cycle(stencil, shape, 1.15))
+    got = step((jnp.asarray(u, dtype),), (jnp.asarray(f, dtype),))[0]
+    assert got.dtype == dtype and got.shape == shape
+    want = ref.red_black_step(np.asarray(jnp.asarray(u, dtype), np.float64),
+                              np.asarray(jnp.asarray(f, dtype), np.float64),
+                              1.15, stencil.entries)
+    assert ref.max_relative_error(got, want) <= tolerance

@@ -182,3 +182,102 @@ class TestTextbookSeedString:
             t, rho, iters = gen.generate_and_evaluate(expr, evaluation_samples=1)
             assert 0 < rho < 1.0, f"{smoother}: rho={rho}"
             assert t < 1e50
+
+
+class TestEquationParser:
+    """grammar/multigrid.parse_linear_form: the dependency-free parser that
+    turns equation strings into per-field operator rows."""
+
+    @pytest.mark.parametrize("text,constants,want", [
+        ("A * u", None, {("A", "u"): 1}),
+        ("(lam + mu) * (dxx * u + dxy * v) + lam * Laplace * u",
+         {"lam": 2.0, "mu": 3.0},
+         {("dxx", "u"): 5.0, ("dxy", "v"): 5.0, ("Laplace", "u"): 2.0}),
+        ("-(A - 2*B) * u / 4", None, {("A", "u"): -0.25, ("B", "u"): 0.5}),
+        ("2**3 * u - 8 * u + A*u", None, {("A", "u"): 1}),
+        ("1.5e1 * .5 * u", None, {("u",): 7.5}),
+        ("-2**2 * u + A**2 * u", None, {("u",): -4, ("A", "A", "u"): 1}),
+    ])
+    def test_expands_and_collects(self, text, constants, want):
+        from evostencils_tpu.grammar.multigrid import parse_linear_form
+
+        assert parse_linear_form(text, constants) == want
+
+    @pytest.mark.parametrize("text", ["A * / u", "u / A", "(A * u", "A * u)", "A ^ u",
+                                      "2 ** -1 * u"])
+    def test_rejects_malformed(self, text):
+        from evostencils_tpu.grammar.multigrid import parse_linear_form
+
+        with pytest.raises(ValueError):
+            parse_linear_form(text)
+
+    @staticmethod
+    def _rows(problem):
+        import re
+
+        from evostencils_tpu.grammar.multigrid import generate_system_operator
+
+        level = problem.max_level
+        A = generate_system_operator(problem.equations, problem.operators,
+                                     problem.fields, level, 0,
+                                     problem.grid_at(level))
+        # Stencil fingerprints are per-process hashes: compare structure.
+        return [[type(e).__name__, re.sub(r";s[0-9a-f]+\]", "]", canonical_string(e))]
+                for row in A.entries for e in row]
+
+    def test_poisson_and_elasticity_rows(self):
+        """The rows the former computer-algebra expand/collect produced,
+        operand order included."""
+        from evostencils_tpu.problems.elasticity import linear_elasticity_2d
+
+        assert self._rows(poisson_2d(3, 5)) == [["Operator", "ret=Operator[A@5]"]]
+        lap = "%0=Scale[325.0](Operator[{}@5]);%1=Scale[195.0](Operator[Laplace@5]);" \
+              "%2=Addition(%0,%1);ret=%2"
+        dxy = "%0=Scale[325.0](Operator[dxy@5]);ret=%0"
+        assert self._rows(linear_elasticity_2d(3, 5)) == [
+            ["Addition", lap.format("dxx")], ["Scaling", dxy],
+            ["Scaling", dxy], ["Addition", lap.format("dyy")],
+        ]
+
+    def test_main_path_needs_no_sympy(self, tmp_path):
+        """With sympy unimportable, scripts/optimize.py builds the poisson2d
+        and elasticity problems and grammars and evolves a tiny poisson2d
+        population; only the .exa loader asks for sympy."""
+        import os
+        import subprocess
+        import sys
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        script = (
+            "import sys; sys.modules['sympy'] = None\n"
+            "sys.setrecursionlimit(100000)\n"
+            "import jax; jax.config.update('jax_enable_x64', True)\n"
+            "from evostencils_tpu.grammar.multigrid import generate_primitive_set\n"
+            "from evostencils_tpu.problems import build_named_problem\n"
+            "for name in ('poisson2d', 'elasticity'):\n"
+            "    p = build_named_problem(name, 3, 5)\n"
+            "    pset, _ = generate_primitive_set(p.approximation(), p.rhs(),\n"
+            "        p.dimension, p.coarsening_factors, p.max_level, p.equations,\n"
+            "        p.operators, p.fields, depth=2, maximum_local_system_size=4)\n"
+            "    assert p.fields == (['u'] if name == 'poisson2d' else ['u', 'v'])\n"
+            "from scripts.optimize import run\n"
+            "gen, pops, _ = run(['--problem', 'poisson2d', '--min-level', '3',\n"
+            "    '--max-level', '4', '--mu', '2', '--lambda', '2',\n"
+            "    '--generations', '1', '--evaluation-samples', '1', '--seed', '1',\n"
+            "    '--output', sys.argv[1]])\n"
+            "assert all(i.fitness_values for p in pops for i in p)\n"
+            "try:\n"
+            "    import evostencils_tpu.problems.parser\n"
+            "except ImportError as e:\n"
+            "    assert 'sympy' in str(e)\n"
+            "else:\n"
+            "    raise AssertionError('parser imported without sympy')\n"
+            "print('NO_SYMPY_OK')\n"
+        )
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo)
+        out = subprocess.run(
+            [sys.executable, "-c", script, str(tmp_path)],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=600,
+        )
+        assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+        assert "NO_SYMPY_OK" in out.stdout

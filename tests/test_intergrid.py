@@ -1,13 +1,16 @@
-"""Intergrid transfer paths: the MXU matmul, conv and slice formulations
-must agree exactly (the matmul path is the TPU hot path — 3.9 µs vs 25 ms
-per 1023² round trip; see ops/intergrid.py docstring)."""
+"""Intergrid transfers (strided-slice stencil form, ops/intergrid.py) against
+the plain float64 numpy reference (ops/reference.py), for the separable
+defaults, non-separable, 3D, complex, injection and asymmetric stencils.
+
+The test names predate the removal of the dense-matrix and convolution
+paths; each now checks the one kept path against the reference."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import evostencils_tpu.ops.intergrid as ig
-from evostencils_tpu.ops.stencil_ops import apply_constant_stencil, pad_zeros
+from evostencils_tpu.ops import reference as ref
 from evostencils_tpu.stencils import constant
 
 
@@ -16,23 +19,18 @@ def nprng():
     return np.random.default_rng(1234)
 
 
-def slice_restrict(fine, stencil, coarse_shape, coarsening):
-    reach = stencil.max_reach()
-    padded = pad_zeros(fine, reach)
-    out = None
-    for offset, value in stencil.entries:
-        index = tuple(
-            slice(c - 1 + o + r, c - 1 + o + r + c * (m - 1) + 1, c)
-            for c, o, r, m in zip(coarsening, offset, reach, coarse_shape)
-        )
-        term = value * padded[index]
-        out = term if out is None else out + term
-    return out
+def check_restrict(fine, stencil, coarse_shape, coarsening):
+    got = ig.restrict(jnp.asarray(fine), stencil, coarse_shape, coarsening)
+    want = ref.restrict(fine, stencil.entries, coarse_shape, coarsening)
+    assert got.shape == tuple(coarse_shape)
+    np.testing.assert_allclose(np.asarray(got), want, atol=1e-12)
 
 
-def slice_prolong(coarse, stencil, fine_shape, coarsening):
-    injected = ig.inject_to_fine(coarse, fine_shape, coarsening)
-    return apply_constant_stencil(injected, stencil)
+def check_prolong(coarse, stencil, fine_shape, coarsening):
+    got = ig.prolong(jnp.asarray(coarse), stencil, fine_shape, coarsening)
+    want = ref.prolong(coarse, stencil.entries, fine_shape, coarsening)
+    assert got.shape == tuple(fine_shape)
+    np.testing.assert_allclose(np.asarray(got), want, atol=1e-12)
 
 
 FW2 = constant.Stencil(
@@ -43,7 +41,7 @@ BL2 = constant.Stencil(
     [((i, j), (2 - abs(i)) * (2 - abs(j)) / 4.0)
      for i in (-1, 0, 1) for j in (-1, 0, 1)]
 )
-# Plus-shaped restriction: rank 2, NOT separable -> conv path.
+# Plus-shaped restriction: rank 2, not separable.
 PLUS = constant.Stencil(
     [((0, 0), 0.5), ((1, 0), 0.125), ((-1, 0), 0.125),
      ((0, 1), 0.125), ((0, -1), 0.125)]
@@ -53,28 +51,13 @@ PLUS = constant.Stencil(
 @pytest.mark.parametrize("level", [3, 4, 5])
 def test_separable_matmul_matches_slices_2d(level, nprng):
     nf, nc = 2 ** level - 1, 2 ** (level - 1) - 1
-    fine = jnp.asarray(nprng.standard_normal((nf, nf)))
-    coarse = jnp.asarray(nprng.standard_normal((nc, nc)))
-    assert ig._axis_matrices(FW2, (nf, nf), (nc, nc), (2, 2),
-                             fine.dtype, "restrict") is not None
-    np.testing.assert_allclose(
-        np.asarray(ig.restrict(fine, FW2, (nc, nc), (2, 2))),
-        np.asarray(slice_restrict(fine, FW2, (nc, nc), (2, 2))), atol=1e-12,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ig.prolong(coarse, BL2, (nf, nf), (2, 2))),
-        np.asarray(slice_prolong(coarse, BL2, (nf, nf), (2, 2))), atol=1e-12,
-    )
+    check_restrict(nprng.standard_normal((nf, nf)), FW2, (nc, nc), (2, 2))
+    check_prolong(nprng.standard_normal((nc, nc)), BL2, (nf, nf), (2, 2))
 
 
 def test_nonseparable_conv_matches_slices(nprng):
-    fine = jnp.asarray(nprng.standard_normal((15, 15)))
-    assert ig._axis_matrices(PLUS, (15, 15), (7, 7), (2, 2),
-                             fine.dtype, "restrict") is None
-    np.testing.assert_allclose(
-        np.asarray(ig.restrict(fine, PLUS, (7, 7), (2, 2))),
-        np.asarray(slice_restrict(fine, PLUS, (7, 7), (2, 2))), atol=1e-12,
-    )
+    check_restrict(nprng.standard_normal((15, 15)), PLUS, (7, 7), (2, 2))
+    check_prolong(nprng.standard_normal((7, 7)), PLUS, (15, 15), (2, 2))
 
 
 def test_3d_separable(nprng):
@@ -86,52 +69,49 @@ def test_3d_separable(nprng):
         [((i, j, k), (2 - abs(i)) * (2 - abs(j)) * (2 - abs(k)) / 8.0)
          for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)]
     )
-    nf, nc = 15, 7
-    fine = jnp.asarray(nprng.standard_normal((nf,) * 3))
-    coarse = jnp.asarray(nprng.standard_normal((nc,) * 3))
-    np.testing.assert_allclose(
-        np.asarray(ig.restrict(fine, fw3, (nc,) * 3, (2, 2, 2))),
-        np.asarray(slice_restrict(fine, fw3, (nc,) * 3, (2, 2, 2))), atol=1e-12,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ig.prolong(coarse, bl3, (nf,) * 3, (2, 2, 2))),
-        np.asarray(slice_prolong(coarse, bl3, (nf,) * 3, (2, 2, 2))), atol=1e-12,
-    )
+    check_restrict(nprng.standard_normal((15,) * 3), fw3, (7,) * 3, (2, 2, 2))
+    check_prolong(nprng.standard_normal((7,) * 3), bl3, (15,) * 3, (2, 2, 2))
 
 
 def test_complex_separable(nprng):
-    fine = jnp.asarray(
-        nprng.standard_normal((15, 15)) + 1j * nprng.standard_normal((15, 15)),
-        jnp.complex128,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ig.restrict(fine, FW2, (7, 7), (2, 2))),
-        np.asarray(slice_restrict(fine, FW2, (7, 7), (2, 2))), atol=1e-12,
-    )
+    fine = nprng.standard_normal((15, 15)) + 1j * nprng.standard_normal((15, 15))
+    check_restrict(fine, FW2, (7, 7), (2, 2))
+    coarse = nprng.standard_normal((7, 7)) + 1j * nprng.standard_normal((7, 7))
+    check_prolong(coarse, BL2, (15, 15), (2, 2))
 
 
 def test_injection(nprng):
     inj = constant.Stencil([((0, 0), 1.0)])
-    fine = jnp.asarray(nprng.standard_normal((15, 15)))
-    np.testing.assert_allclose(
-        np.asarray(ig.restrict(fine, inj, (7, 7), (2, 2))),
-        np.asarray(slice_restrict(fine, inj, (7, 7), (2, 2))), atol=1e-12,
+    fine = nprng.standard_normal((15, 15))
+    check_restrict(fine, inj, (7, 7), (2, 2))
+    np.testing.assert_array_equal(
+        np.asarray(ig.restrict(jnp.asarray(fine), inj, (7, 7), (2, 2))),
+        fine[1::2, 1::2],
     )
 
 
 def test_asymmetric_separable(nprng):
-    """Evolved/CMA-ES transfers need not be symmetric — asymmetric
-    separable weights must factor and agree too."""
+    """Evolved/CMA-ES transfers need not be symmetric."""
     a = np.array([0.3, 0.5, 0.2])
     b = np.array([0.1, 0.7, 0.4])
     st = constant.Stencil(
         [((i, j), float(a[i + 1] * b[j + 1]))
          for i in (-1, 0, 1) for j in (-1, 0, 1)]
     )
-    fine = jnp.asarray(nprng.standard_normal((15, 15)))
-    assert ig._axis_matrices(st, (15, 15), (7, 7), (2, 2),
-                             fine.dtype, "restrict") is not None
-    np.testing.assert_allclose(
-        np.asarray(ig.restrict(fine, st, (7, 7), (2, 2))),
-        np.asarray(slice_restrict(fine, st, (7, 7), (2, 2))), atol=1e-12,
-    )
+    check_restrict(nprng.standard_normal((15, 15)), st, (7, 7), (2, 2))
+    check_prolong(nprng.standard_normal((7, 7)), st, (15, 15), (2, 2))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.complex128])
+def test_prolong_lowers_without_scatter(dtype):
+    """Injection is a padded copy, not a scatter: XLA's GPU backend turns a
+    complex128 scatter into a serial loop over the coarse points."""
+    import jax
+
+    coarse = jnp.zeros((7, 7), dtype)
+    hlo = jax.jit(lambda c: ig.prolong(c, BL2, (15, 15), (2, 2))).lower(coarse).as_text()
+    assert "scatter" not in hlo
+    got = ig.inject_to_fine(jnp.arange(1, 50, dtype=dtype).reshape(7, 7), (15, 15), (2, 2))
+    want = np.zeros((15, 15), dtype)
+    want[1::2, 1::2] = np.arange(1, 50).reshape(7, 7)
+    np.testing.assert_array_equal(np.asarray(got), want)

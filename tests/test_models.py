@@ -1,6 +1,5 @@
 """Model-based prediction tests: LFA golden values + roofline sanity."""
 
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +11,8 @@ from evostencils_tpu.ir.reference_cycles import generate_v_22_cycle_two_grid
 from evostencils_tpu.models.lfa import ConvergenceEvaluator
 from evostencils_tpu.models.roofline import PerformanceEvaluator
 from evostencils_tpu.problems.poisson import poisson_2d
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 @pytest.fixture(scope="module")
@@ -151,7 +152,7 @@ class TestRoofline:
     def test_runtime_positive_and_monotone(self, setup):
         problem, t0, ev = setup
         u, f = t0.approximation, problem.rhs()
-        perf = PerformanceEvaluator()
+        perf = PerformanceEvaluator(device_kind=H100)
         c1 = two_grid(t0, f, u, 1, 1)
         c2 = two_grid(t0, f, u, 2, 2)
         r1 = perf.estimate_runtime(c1)
@@ -163,13 +164,23 @@ class TestRoofline:
         u, f = t0.approximation, problem.rhs()
         rb = smooth(t0, f, u, 1, part.RedBlack)
         ja = smooth(t0, f, u, 1, part.Single)
-        perf = PerformanceEvaluator()
-        assert perf.estimate_runtime(rb) > perf.estimate_runtime(ja)
+        # Neutral (uncalibrated) factors cost both sweeps alike; a fitted
+        # penalty (the reference's CPU fit, performance.py:93-94) applies
+        # to red-black only.
+        neutral = PerformanceEvaluator(device_kind=H100)
+        assert neutral.estimate_runtime(rb) == pytest.approx(
+            neutral.estimate_runtime(ja))
+        # Estimates are cached on the expression: cost fresh copies.
+        rb = smooth(t0, f, u, 1, part.RedBlack)
+        ja = smooth(t0, f, u, 1, part.Single)
+        perf = PerformanceEvaluator(device_kind=H100, red_black_penalty=1.4303)
+        assert perf.estimate_runtime(rb) == pytest.approx(
+            1.4303 * perf.estimate_runtime(ja))
 
     def test_bandwidth_bound_regime(self):
-        perf = PerformanceEvaluator()
+        perf = PerformanceEvaluator(device_kind=H100)
         # 5-point stencil: AI ≈ 9 flops / (7 words · 4 B) « ridge point;
-        # effective words are divided by the calibrated fusion factor.
+        # effective words are divided by the fusion factor.
         runtime = perf.compute_runtime(9, 7, 9 * 1024 * 1024)
         w_eff = 7 / perf.fusion_factor
         expected = 9 * 1024 * 1024 / (9 / (w_eff * 4) * perf.peak_bandwidth)
@@ -189,7 +200,7 @@ class TestModelBasedOptimization:
         ev = ConvergenceEvaluator(
             2, problem.coarsening_factors, problem.finest_grid, samples_per_axis=4
         )
-        perf = PerformanceEvaluator()
+        perf = PerformanceEvaluator(device_kind=H100)
         opt = Optimizer.for_problem(
             problem,
             program_generator=gen,
@@ -214,54 +225,6 @@ class TestModelBasedOptimization:
         rho, runtime = hofs[-1][0].fitness_values
         assert 0 < rho < 1
         assert runtime > 0
-
-
-class TestRooflineCalibration:
-    """The calibrated model must reproduce real-chip per-cycle timings
-    within 2× (VERDICT item 8); measurements are committed by
-    scripts/calibrate_roofline.py."""
-
-    CALIBRATION = os.path.join(
-        os.path.dirname(__file__), "..", "artifacts",
-        "roofline_calibration.json",
-    )
-
-    @pytest.mark.skipif(
-        not os.path.isfile(os.path.abspath(CALIBRATION)),
-        reason="no calibration artifact (run scripts/calibrate_roofline.py on TPU)",
-    )
-    def test_predicted_within_gate_of_measured(self):
-        import json
-
-        with open(os.path.abspath(self.CALIBRATION)) as fh:
-            data = json.load(fh)
-        from evostencils_tpu.models.roofline import (
-            INTERGRID_FACTOR_TPU,
-            KERNEL_LAUNCH_OVERHEAD_TPU,
-            RED_BLACK_PENALTY_TPU,
-            SINGLE_SWEEP_FUSION_TPU,
-        )
-
-        # The committed constants must match the committed fit.
-        assert RED_BLACK_PENALTY_TPU == pytest.approx(
-            data["red_black_penalty"], rel=1e-6
-        )
-        assert KERNEL_LAUNCH_OVERHEAD_TPU == pytest.approx(
-            data["kernel_launch_overhead_s"], rel=1e-6
-        )
-        assert SINGLE_SWEEP_FUSION_TPU == pytest.approx(
-            data["single_sweep_fusion"], rel=1e-6
-        )
-        assert INTERGRID_FACTOR_TPU == pytest.approx(
-            data["intergrid_factor"], rel=1e-6
-        )
-        # Tightened from round 2's 2× after the single-sweep fusion split
-        # removed the systematic Jacobi over-prediction (VERDICT item 8).
-        for case in data["cases"]:
-            ratio = case["predicted_s"] / case["measured_s"]
-            assert 1 / 1.35 <= ratio <= 1.35, (
-                f"{case['case']}: predicted/measured = {ratio:.2f}"
-            )
 
 
 class TestLFAComplexShiftedLaplace:

@@ -166,7 +166,7 @@ class TestDispatch:
 class TestRelaxationTuning:
     def test_gradient_tuning_improves_rho(self):
         """Differentiate log-contraction through the whole lowered solve
-        w.r.t. the relaxation-factor vector (TPU-native capability the
+        w.r.t. the relaxation-factor vector (JAX-native capability the
         reference approximated by patching generated C++ globals)."""
         from evostencils_tpu.ir import partitioning as part, smoother
         from evostencils_tpu.optimization.relaxation import tune_relaxation_factors

@@ -18,6 +18,9 @@ from evostencils_tpu.parallel.mesh import (
 )
 from evostencils_tpu.problems.poisson import poisson_2d
 
+# Worker subprocesses import the package from the repository root.
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 @pytest.fixture(scope="module")
 def setup():
@@ -161,12 +164,13 @@ def test_multihost_dispatcher_two_process_roundtrip(tmp_path):
     worker.write_text(_MULTIHOST_WORKER)
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = REPO
     env.pop("XLA_FLAGS", None)
     procs = [
         subprocess.Popen(
             [sys.executable, str(worker), addr, str(pid)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env, cwd="/root/repo",
+            env=env, cwd=REPO,
         )
         for pid in range(2)
     ]
@@ -322,12 +326,13 @@ def test_multihost_dispatcher_with_host_local_mesh(tmp_path):
     worker.write_text(_MULTIHOST_MESH_WORKER)
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = REPO
     env.pop("XLA_FLAGS", None)
     procs = [
         subprocess.Popen(
             [sys.executable, str(worker), addr, str(pid)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env, cwd="/root/repo",
+            env=env, cwd=REPO,
         )
         for pid in range(2)
     ]

@@ -315,9 +315,9 @@ class TestFAS:
         """Pin the round-5 protocol-scale FAS champion (SOGP, μ=λ=16 × 20
         generations, 512² levels 5–9): the stored grammar string must
         re-parse through the FAS pset and keep beating the textbook FAS
-        V(2,2) baselines (n=20 medians: champion ρ 0.187 / 14 its vs
-        Newton 0.577 / 42, Picard 0.515 / 35.5 — see
-        artifacts/fas_stats_n20_r5.json).  Reference protocol anchor:
+        V(2,2) baselines (n=20 medians recorded when it was evolved:
+        champion ρ 0.187 / 14 its vs Newton 0.577 / 42, Picard 0.515 /
+        35.5).  Reference protocol anchor:
         code_generation/exastencils_FAS.py:369-426."""
         import random
 

@@ -2,6 +2,8 @@
 
 import os
 
+import pytest
+
 import jax.numpy as jnp
 import numpy as np
 
@@ -95,7 +97,8 @@ class TestProfiling:
         )
         report = evaluation_report(gen)
         assert {"compile_time_s", "run_time_s", "vm_hits",
-                "vm_hit_rate"} <= set(report)
+                "vm_hit_rate", "device_failures"} <= set(report)
+        assert report["device_failures"] == 0
 
     def test_bandwidth_utilization_fields(self):
         import jax.numpy as jnp
@@ -113,9 +116,11 @@ class TestProfiling:
             maximum_local_system_size=4,
         )
         cycle = generate_v_cycle(tl, problem.rhs(), 2, 1)
-        out = bandwidth_utilization(cycle, 1e-3)
+        out = bandwidth_utilization(cycle, 1e-3, "NVIDIA H100 80GB HBM3")
         assert out["modeled_bytes"] > 0
         assert out["achieved_GBps"] > 0
+        assert out["utilization_pct_upper_bound"] == pytest.approx(
+            100.0 * out["modeled_bytes"] / 1e-3 / 3.35e12, abs=0.05)
 
 
 def test_champion_helpers_roundtrip(tmp_path):
@@ -157,3 +162,52 @@ def test_champion_helpers_roundtrip(tmp_path):
     assert omega_index(1.9) == 36
     assert omega_index(0.6) == 10
     assert omega_index(-5.0) == 0 and omega_index(99.0) == 36
+
+
+class TestPeaks:
+    def test_h100_lookup(self):
+        from evostencils_tpu.utils.peaks import peaks_for
+
+        peaks = peaks_for("NVIDIA H100 80GB HBM3")
+        assert peaks.hbm_bytes_per_s == 3.35e12
+        assert peaks.f32_flops == 67e12
+        assert "data sheet" in peaks.source
+
+    @pytest.mark.parametrize("kind", ["cpu", "NVIDIA H100 PCIe", "NVIDIA A100-SXM4-80GB"])
+    def test_unknown_device_raises(self, kind):
+        from evostencils_tpu.models.roofline import PerformanceEvaluator
+        from evostencils_tpu.utils.peaks import peaks_for
+
+        with pytest.raises(KeyError, match="no published peaks"):
+            peaks_for(kind)
+        with pytest.raises(KeyError):
+            PerformanceEvaluator(device_kind=kind)
+
+
+_CACHE_PROBE = (
+    "import jax; from evostencils_tpu.utils import enable_persistent_compile_cache as e;"
+    "d = e(); print(d); print(jax.config.jax_compilation_cache_dir)"
+)
+
+
+@pytest.mark.parametrize("env_dir", [None, "custom"])
+def test_compile_cache_placement(env_dir, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins and is left alone; otherwise the
+    cache goes to the fixed <repo>/.jax_cache."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo)
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / env_dir)
+    out = subprocess.run([sys.executable, "-c", _CACHE_PROBE], env=env,
+                         cwd=str(tmp_path), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    returned, configured = out.stdout.split()
+    want = (str(tmp_path / env_dir) if env_dir is not None
+            else os.path.join(repo, ".jax_cache"))
+    assert returned == want
+    assert configured == want
